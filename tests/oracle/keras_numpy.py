@@ -4,7 +4,7 @@ Independent restatement of the exact graph recorded in
 `/root/reference/modules/lidar/data/lidar_model.json` (Keras 2.0.4),
 reading weights straight from `lidar_model.h5` — no TF needed. Used as
 the golden oracle for tools/import_keras.load_reference_fcn: if the
-imported flax model and this forward agree on random inputs, the import
+imported model and this forward agree on random inputs, the import
 reproduces the shipped network's activations, not just its weights.
 
 Graph (layer wiring dumped from the json):

@@ -5,7 +5,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from flax import nnx
 
 from tpufusion.data.radar import RadarTrack, radar_features
 from tpufusion.serve.tracker import PoseTracker
@@ -107,7 +106,7 @@ def test_transform_point_cloud():
 @pytest.mark.slow
 def test_fusion_training_driver():
     from tpufusion.config import CameraConfig, ModelConfig
-    from tpufusion.models.fusion import FusionNet
+    from tpufusion.models.fusion import FusionConfig, init_fusion
     from tpufusion.train.fusion_trainer import (
         build_fusion_batches,
         predict_fusion,
@@ -115,13 +114,13 @@ def test_fusion_training_driver():
     )
 
     cam_cfg = CameraConfig(width=201, height=64, channels=1)
-    net = FusionNet(
+    fcfg = FusionConfig(
         lidar_model=ModelConfig(),
         camera_model=ModelConfig(vertical_stride=2, use_regression=False),
         camera=cam_cfg,
         lidar_hw=(32, 201),
-        rngs=nnx.Rngs(0),
     )
+    variables = init_fusion(fcfg, jax.random.PRNGKey(0))
     f = 12
     rng = np.random.default_rng(0)
     data = build_fusion_batches(
@@ -134,14 +133,17 @@ def test_fusion_training_driver():
         radar_ts=np.arange(f) * 100 + 50,
     )
     assert data["lidar"].shape[0] == f
-    losses = train_fusion(net, data, epochs=4, batch_size=4, lock_camera=True)
+    variables, losses = train_fusion(
+        fcfg, variables, data, epochs=4, batch_size=4, lock_camera=True
+    )
     assert losses[-1] < losses[0]
 
     import tempfile, os
 
     with tempfile.TemporaryDirectory() as d:
         out_csv = os.path.join(d, "fusion.csv")
-        predict_fusion(net, data, list(range(f)), out_csv, batch_size=4)
+        predict_fusion(fcfg, variables, data, list(range(f)), out_csv,
+                       batch_size=4)
         with open(out_csv) as fh:
             lines = fh.read().strip().splitlines()
         assert len(lines) == f + 1
@@ -149,17 +151,22 @@ def test_fusion_training_driver():
 
 def test_detector_asset_carries_decode_operating_point():
     """The shipped detector asset ships WITH the decode thresholds it was
-    validated at (asset json "decode" dict); tpufusion.benchmarks applies
-    them when loading the asset for configs 4/5."""
+    validated at (asset json "decode" dict); models/io.load_detector_asset
+    applies them (and the model variant) when loading the asset."""
     import json
     import os
 
-    from tpufusion.benchmarks import _quick_trained_state
     from tpufusion.config import DEFAULT, DecodeConfig
+    from tpufusion.models.io import load_detector_asset
 
-    graphdef, state, dcfg, head = _quick_trained_state()
+    cfg, variables, meta = load_detector_asset()
+    dcfg, head = cfg.decode, cfg.model.head
     assert isinstance(dcfg, DecodeConfig)
     assert head in ("corner", "direct")
+    assert head == meta["model"]["head"]
+    assert variables["params"]["conv1"]["kernel"].shape[-1] == (
+        4 * cfg.model.width_multiplier
+    )
 
     asset_json = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), os.pardir,
@@ -373,18 +380,14 @@ def test_tracker_intermittent_clutter_not_confirmed():
 
 
 def test_mixed_family_eval_best_effort(monkeypatch):
-    """Config 4's mixed-family companion row is best-effort: any load
-    failure skips the row (returns None) instead of publishing a
-    substitute model's scores under the mixed asset's name — the same
-    contract as the wide-yaw companion."""
+    """Config 4's mixed-family companion row never hides a load failure:
+    it raises instead of skipping the row or publishing a substitute
+    model's scores under the mixed asset's name — the same contract as
+    the wide-yaw companion."""
     import os
 
     import tpufusion.benchmarks as B
 
-    # guard against a vacuous pass: if the shipped asset were absent,
-    # _companion_asset_eval would return None BEFORE reaching the
-    # monkeypatched loader and the skip-on-load-failure contract would
-    # go untested silently
     asset = os.path.join(
         os.path.dirname(os.path.abspath(B.__file__)),
         "assets", "synthetic_detector_mixed.npz",
@@ -394,24 +397,25 @@ def test_mixed_family_eval_best_effort(monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("load failed")
 
-    monkeypatch.setattr(B, "_quick_trained_state", boom)
-    assert B._mixed_family_eval() is None
+    monkeypatch.setattr(B, "load_detector_asset", boom)
+    with pytest.raises(RuntimeError, match="load failed"):
+        B._mixed_family_eval()
+    with pytest.raises(RuntimeError, match="load failed"):
+        B._wide_yaw_eval()
 
 
 def test_quick_trained_state_no_fallback_raises(tmp_path):
-    """fallback=False must raise instead of silently quick-training a
-    substitute model (the wide-yaw companion row would otherwise publish
-    a fallback model's scores under the asset's name)."""
+    """Loading a detector asset raises on any failure instead of
+    substituting a quick-trained model (a benchmark row would otherwise
+    publish a fallback model's scores under the asset's name)."""
     import json
 
     import pytest
 
-    from tpufusion.benchmarks import _quick_trained_state
+    from tpufusion.models.io import load_detector_asset, save_state_npz
 
     with pytest.raises(FileNotFoundError):
-        _quick_trained_state(
-            asset_path=str(tmp_path / "missing.npz"), fallback=False
-        )
+        load_detector_asset(str(tmp_path / "missing.npz"))
 
     # corrupt npz with a readable json: must raise, not fall back
     bad = tmp_path / "bad.npz"
@@ -420,7 +424,19 @@ def test_quick_trained_state_no_fallback_raises(tmp_path):
         {"decode": {}, "model": {"head": "direct"}}
     ))
     with pytest.raises(Exception):
-        _quick_trained_state(asset_path=str(bad), fallback=False)
+        load_detector_asset(str(bad))
+
+    # a readable npz of another architecture: must raise on the shapes
+    from tpufusion.config import ModelConfig
+    from tpufusion.models.fcn import init_fcn
+
+    other = tmp_path / "other.npz"
+    save_state_npz(str(other), init_fcn(ModelConfig(), jax.random.PRNGKey(0)))
+    (tmp_path / "other.npz.json").write_text(json.dumps(
+        {"model": {"head": "direct", "width_multiplier": 2}}
+    ))
+    with pytest.raises(ValueError, match="shape"):
+        load_detector_asset(str(other))
 
 
 def test_surface_fit_params_single_source():
@@ -445,7 +461,7 @@ def test_decode_for_resolution_overrides():
     overrides and leaves the config untouched without a table."""
     import dataclasses
 
-    from tpufusion.benchmarks import decode_for_resolution
+    from tpufusion.models.io import decode_for_resolution
     from tpufusion.config import DecodeConfig
 
     base = DecodeConfig(min_prob=0.8, min_bbox_area=8.0)

@@ -1,7 +1,7 @@
 """Beam-structured synthetic Velodyne scans (data/synthetic.py).
 
 The structural properties a real HDL-32 scan has and the uniform clutter
-generator lacks (VERDICT r2): discrete elevation beams on the projector's
+generator lacks: discrete elevation beams on the projector's
 row comb, near-full ground occupancy in downward rows, sparse upper rows,
 occlusion shadows behind objects, and range-dependent return dropout.
 Reference geometry: `modules/lidar/process/extract_rosbag_lidar.py:18-77`.

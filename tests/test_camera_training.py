@@ -6,11 +6,10 @@ import jax
 import jax.numpy as jnp
 import optax
 import yaml
-from flax import nnx
 
 from tpufusion.config import LossConfig, ModelConfig, RangeViewSpec, TrainConfig
 from tpufusion.geometry.camera import CameraModel, camera_label_footprint
-from tpufusion.models.fcn import FCN
+from tpufusion.models.fcn import init_fcn
 from tpufusion.train.train_step import make_train_step
 
 
@@ -55,19 +54,17 @@ def test_camera_training_learns(tmp_path, rng):
         images[i, :, :, 0] += onehot[..., 1] * 2.0
     assert labels[..., 1].sum() > 0, "footprints must rasterize"
 
-    model = FCN(
-        ModelConfig(vertical_stride=2, use_regression=False),
-        in_channels=1,
-        rngs=nnx.Rngs(0),
-    )
-    optimizer = nnx.Optimizer(model, optax.adam(3e-3), wrt=nnx.Param)
+    mcfg = ModelConfig(vertical_stride=2, use_regression=False)
+    variables = init_fcn(mcfg, jax.random.PRNGKey(0), in_channels=1)
+    tx = optax.adam(3e-3)
+    opt_state = tx.init(variables["params"])
     pos_frac = labels[..., 1].mean()
     loss_cfg = LossConfig(
         obj_to_bkg_ratio=pos_frac, avg_obj_size=float(labels[..., 1].sum() / f)
     )
     step = make_train_step(
-        RangeViewSpec(), loss_cfg, TrainConfig(batch_size=8, augment=True),
-        use_regression=False,
+        mcfg, tx, RangeViewSpec(), loss_cfg,
+        TrainConfig(batch_size=8, augment=True),
     )
     batch = {
         "images": jnp.asarray(images[:8]),
@@ -77,7 +74,7 @@ def test_camera_training_learns(tmp_path, rng):
     losses = []
     for i in range(25):
         key, sub = jax.random.split(key)
-        _, m = step(model, optimizer, batch, sub)
+        variables, opt_state, m = step(variables, opt_state, batch, sub)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0] * 0.7, losses[:3] + losses[-3:]
     assert float(m["recall"]) > 0.5

@@ -604,7 +604,7 @@ def test_direct_fit_center_mode_circle():
 
 def test_direct_fit_center_mode_box():
     """center="fit" with the BOX boundary on box-rendered scenes — the
-    oracle-sensitivity case VERDICT r3 asked for: the ray-caster renders
+    oracle-sensitivity case: the ray-caster renders
     the true l x w rectangle (no inset) and the fit's rectangle model
     uses only the head's size estimate (scale 1.0), so no constant is
     shared with the generator. Same structure as the ellipse test:

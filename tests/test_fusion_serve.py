@@ -5,7 +5,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-from flax import nnx
 
 from tpufusion.config import (
     CameraConfig,
@@ -15,62 +14,78 @@ from tpufusion.config import (
     RangeViewSpec,
 )
 from tpufusion.data.align import align_camera_lidar_radar, nearest_indices
-from tpufusion.models.fusion import FusionNet, fusion_loss, trainable_filter
+from tpufusion.models.fusion import (
+    FusionConfig,
+    apply_fusion,
+    fusion_loss,
+    init_fusion,
+    trainable_groups,
+)
 
 SMALL_SPEC = RangeViewSpec(res_h_deg=1.8)  # width 201
 SMALL_CAM = CameraConfig(width=201, height=64, channels=1)
 
 
+SMALL_FUSION = FusionConfig(
+    lidar_model=ModelConfig(),
+    camera_model=ModelConfig(vertical_stride=2, use_regression=False),
+    camera=SMALL_CAM,
+    lidar_hw=(SMALL_SPEC.height, SMALL_SPEC.width),
+)
+
+
 def _small_fusion():
-    return FusionNet(
-        lidar_model=ModelConfig(),
-        camera_model=ModelConfig(vertical_stride=2, use_regression=False),
-        camera=SMALL_CAM,
-        lidar_hw=(SMALL_SPEC.height, SMALL_SPEC.width),
-        rngs=nnx.Rngs(0),
-    )
+    return init_fusion(SMALL_FUSION, jax.random.PRNGKey(0))
 
 
 def test_fusion_forward_shapes():
-    net = _small_fusion()
+    variables = _small_fusion()
     cam = jnp.zeros((2, 64, 201, 1))
     lidar = jnp.zeros((2, 32, 201, 3))
     radar = jnp.zeros((2, 2))
-    centroid, rz = net(cam, lidar, radar)
+    (centroid, rz), _ = apply_fusion(SMALL_FUSION, variables, cam, lidar,
+                                     radar)
     assert centroid.shape == (2, 3) and rz.shape == (2, 1)
 
 
 def test_fusion_freeze_filter():
-    net = _small_fusion()
-    frozen = trainable_filter(lock_lidar=True, lock_camera=True)
-    state = nnx.state(net)
-    flat = nnx.to_flat_state(state)
-    kept = [p for p, v in flat if frozen(p, v)]
+    variables = _small_fusion()
+    kept = trainable_groups(lock_lidar=True, lock_camera=True)
     assert kept, "head params must remain trainable"
-    assert all(p[0] not in ("lidar_fcn", "camera_fcn") for p in kept)
+    assert set(kept) <= set(variables["params"])
+    assert not {"lidar_fcn", "camera_fcn"} & set(kept)
+    assert set(trainable_groups()) == set(variables["params"])
 
 
 def test_fusion_train_step_learns():
-    net = _small_fusion()
-    opt = nnx.Optimizer(net, optax.adam(1e-3), wrt=nnx.Param)
+    variables = _small_fusion()
+    tx = optax.adam(1e-3)
+    opt_state = tx.init(variables["params"])
     cam = jnp.ones((4, 64, 201, 1)) * 0.1
     lidar = jnp.ones((4, 32, 201, 3)) * 0.2
     radar = jnp.asarray([[10.0, 0.1]] * 4)
     target = (jnp.asarray([[5.0, 1.0, -0.5]] * 4), jnp.asarray([[0.3]] * 4))
 
-    @nnx.jit
-    def step(net, opt):
-        def loss_fn(net):
-            return fusion_loss(net(cam, lidar, radar, train=False), target)
+    @jax.jit
+    def step(params, opt_state):
+        def loss_fn(params):
+            out, _ = apply_fusion(
+                SMALL_FUSION,
+                {"params": params,
+                 "batch_stats": variables["batch_stats"]},
+                cam, lidar, radar,
+            )
+            return fusion_loss(out, target)
 
-        loss, grads = nnx.value_and_grad(loss_fn)(net)
-        opt.update(net, grads)
-        return loss
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
 
-    first = float(step(net, opt))
+    params = variables["params"]
+    params, opt_state, first = step(params, opt_state)
     for _ in range(20):
-        last = float(step(net, opt))
-    assert last < first * 0.5, (first, last)
+        params, opt_state, last = step(params, opt_state)
+    assert float(last) < float(first) * 0.5, (first, last)
 
 
 def test_nearest_indices():

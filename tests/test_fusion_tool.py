@@ -1,8 +1,8 @@
 """Protocol tests for the fusion accuracy tool and the full-size camera
 bench (tools/train_fusion_synthetic.py, tools/bench_camera_full.py).
 
-The tools themselves run on TPU for the recorded BASELINE numbers; these
-tests pin the parts that decide whether those numbers MEAN anything: the
+The tools themselves run on the accelerator; these tests pin the parts
+that decide whether their numbers MEAN anything: the
 synthetic camera actually renders the vehicle where the calibration says
 it is, the aligned dataset carries consistent targets across modalities,
 and the lidar-only ablation really blinds the camera/radar branches.

@@ -164,23 +164,6 @@ def test_connected_components_matches_scipy(rng):
     assert len(set(roots)) == n
 
 
-def test_pallas_cc_matches_xla(rng):
-    """The VMEM-resident Pallas propagation (ops/pallas_cc.py) is
-    bit-identical to the XLA sweep formulation: same labels everywhere,
-    same extents on foreground pixels (background extents are undefined
-    in both)."""
-    from tpufusion.ops.components import connected_components_with_bbox
-
-    for density in (0.05, 0.3, 0.6, 0.0):
-        mask = jnp.asarray(rng.random((32, 181)) < density)
-        fg = np.asarray(mask)
-        a = connected_components_with_bbox(mask, 128, "xla")
-        b = connected_components_with_bbox(mask, 128, "pallas")
-        assert np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
-        for x, y in zip(a[1:], b[1:]):
-            assert np.array_equal(np.asarray(x)[fg], np.asarray(y)[fg])
-
-
 def test_sort_and_scatter_winners_identical(rng):
     """The sort-based exact path (default) and the two-pass scatter-min
     produce bit-identical images, including collision tie-breaks."""
@@ -279,44 +262,19 @@ def test_sort16_and_exact_and_scatter_identical(rng):
         np.testing.assert_array_equal(a, c)
 
 
-def test_pallas_projection_identical_to_exact(rng):
-    """The Pallas scatter-min kernel (method="pallas",
-    ops/pallas_projection.py) is bit-identical to the exact 2-key sort,
-    including collision tie-breaks (strict-compare + increasing index
-    order reproduces the stable sort's lowest-index-wins rule), batched
-    frames, validity masks, non-finite points, and the unroll-padding
-    path (N not a multiple of the kernel's unroll factor)."""
-    from tests.conftest import synthetic_cloud
+def test_projection_rejects_unknown_method():
+    """Only the XLA winner formulations exist; any other method name
+    (the removed "pallas" kernel included) is refused, not defaulted."""
     from tpufusion.geometry.range_view import (
         range_view_project,
         range_view_project_batch,
     )
 
-    spec = RangeViewSpec()
-    frames = []
-    for seed in range(3):
-        r = np.random.default_rng(seed)
-        pts = synthetic_cloud(r, n=8192, with_vehicle_at=(10.0, 2.0, -0.7))
-        pts = np.concatenate([pts, pts[:512]], axis=0)  # exact-key ties
-        frames.append(pts.astype(np.float32))
-    batch = np.stack(frames)
-    batch[0, 7] = np.nan  # non-finite dropped
-    valid = np.random.default_rng(9).random(batch.shape[:2]) > 0.1
-    a = np.asarray(
-        range_view_project_batch(jnp.asarray(batch), spec,
-                                 jnp.asarray(valid), "exact")
-    )
-    b = np.asarray(
-        range_view_project_batch(jnp.asarray(batch), spec,
-                                 jnp.asarray(valid), "pallas")
-    )
-    np.testing.assert_array_equal(a, b)
-    # single-frame entry + odd N exercises the unroll padding
-    odd = jnp.asarray(frames[0][:4097])
-    np.testing.assert_array_equal(
-        np.asarray(range_view_project(odd, spec, None, "exact")),
-        np.asarray(range_view_project(odd, spec, None, "pallas")),
-    )
+    pts = jnp.zeros((16, 4))
+    with pytest.raises(ValueError, match="pallas"):
+        range_view_project(pts, RangeViewSpec(), None, "pallas")
+    with pytest.raises(ValueError, match="pallas"):
+        range_view_project_batch(pts[None], RangeViewSpec(), None, "pallas")
 
 
 def test_footprint_mask_methods_match_oracle():

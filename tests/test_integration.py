@@ -8,7 +8,6 @@ import os
 import numpy as np
 import jax.numpy as jnp
 import pytest
-from flax import nnx
 
 from tpufusion.config import (
     DecodeConfig,
@@ -89,7 +88,7 @@ def test_full_pipeline(tmp_path):
 
     # --- batch predict -> CSVs ---
     out = predict_dataset_dir(
-        trainer2.model, str(ds_dir), str(tmp_path / "pred"), cfg, batch=8
+        trainer2.variables, str(ds_dir), str(tmp_path / "pred"), cfg, batch=8
     )
     assert os.path.exists(out["predictions_csv"])
     assert os.path.exists(out["metadata_csv"])
@@ -106,7 +105,9 @@ def test_full_pipeline(tmp_path):
     assert len(parse_tracklet_xml(str(sub_xml))[0].poses) == 24
 
     # --- scoring runs and reports a sane structure ---
-    poses, found = predict_images(trainer2.model, data["images"], cfg, batch=8)
+    poses, found = predict_images(
+        trainer2.variables, data["images"], cfg, batch=8
+    )
     truth = np.concatenate(
         [
             raw["center"],

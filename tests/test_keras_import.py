@@ -2,7 +2,7 @@
 
 The conv-transpose check uses jax itself as the oracle: Keras's
 Conv2DTranspose is by definition the gradient of a strided SAME conv with
-kernel (kh, kw, out, in), so flax ConvTranspose(kernel') must equal the
+kernel (kh, kw, out, in), so models/fcn.deconv(kernel') must equal the
 conv VJP after the flip+swap conversion.
 """
 
@@ -12,9 +12,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from flax import nnx
 
-from tpufusion.tools.import_keras import keras_deconv_to_flax
+from tpufusion.models.fcn import deconv
+from tpufusion.tools.import_keras import keras_deconv_kernel
 
 REF_H5 = "/root/reference/modules/lidar/data/lidar_model.h5"
 
@@ -42,13 +42,10 @@ def test_conv_transpose_matches_conv_gradient(stride, rng):
     _, vjp = jax.vjp(conv, x0)
     (want,) = vjp(jnp.asarray(g))  # (1, h*s, w*s, cout)
 
-    # flax ConvTranspose with the converted kernel
-    layer = nnx.ConvTranspose(
-        cin, cout, (kh, kw), strides=stride, padding="SAME",
-        use_bias=False, rngs=nnx.Rngs(0),
-    )
-    layer.kernel[...] = jnp.asarray(keras_deconv_to_flax(keras_kernel))
-    got = layer(jnp.asarray(g))
+    # the FCN's deconv with the converted kernel
+    layer = {"kernel": jnp.asarray(keras_deconv_kernel(keras_kernel)),
+             "bias": jnp.zeros((cout,))}
+    got = deconv(layer, jnp.asarray(g), stride)
 
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4
@@ -57,11 +54,14 @@ def test_conv_transpose_matches_conv_gradient(stride, rng):
 
 @pytest.mark.skipif(not os.path.exists(REF_H5), reason="reference not mounted")
 def test_load_reference_weights(rng):
-    from tpufusion.tools.import_keras import load_reference_fcn
+    from tpufusion.tools.import_keras import (
+        apply_shipped_fcn,
+        load_reference_fcn,
+    )
 
-    model = load_reference_fcn(REF_H5)
+    variables = load_reference_fcn(REF_H5)
     x = jnp.asarray(rng.random((1, 32, 1801, 3)).astype(np.float32) * 50)
-    y = model(x, train=False)
+    y = apply_shipped_fcn(variables, x)
     assert y.shape == (1, 32, 1801, 2)
     probs = np.asarray(y)
     np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-4)
@@ -74,14 +74,17 @@ def test_load_reference_weights(rng):
 
 @pytest.mark.skipif(not os.path.exists(REF_H5), reason="reference not mounted")
 def test_golden_activations_vs_numpy_forward(rng):
-    """The imported flax model reproduces the shipped network's actual
+    """The imported model reproduces the shipped network's actual
     outputs: compare against an independent pure-numpy forward of the h5
     graph (tests/oracle/keras_numpy.py) on random inputs — upgrades the
     import from weight-equivalence to activation-equivalence."""
     from tests.oracle.keras_numpy import shipped_model_forward
-    from tpufusion.tools.import_keras import load_reference_fcn
+    from tpufusion.tools.import_keras import (
+        apply_shipped_fcn,
+        load_reference_fcn,
+    )
 
-    model = load_reference_fcn(REF_H5)
+    variables = load_reference_fcn(REF_H5)
     # range-view-like inputs: distances / heights / intensities
     x = np.stack(
         [
@@ -92,5 +95,5 @@ def test_golden_activations_vs_numpy_forward(rng):
         axis=-1,
     ).astype(np.float32)
     want = shipped_model_forward(REF_H5, x)
-    got = np.asarray(model(jnp.asarray(x), train=False))
+    got = np.asarray(apply_shipped_fcn(variables, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -11,22 +11,37 @@ import jax
 import jax.numpy as jnp
 import optax
 import pytest
-from flax import nnx
-from jax.sharding import NamedSharding, PartitionSpec as P
+from jax.sharding import PartitionSpec as P
 
 from tpufusion.config import LossConfig, MeshConfig, ModelConfig, RangeViewSpec, TrainConfig
 from tpufusion.data.synthetic import synthesize_points_batch
-from tpufusion.models.fcn import FCN
+from tpufusion.models.fcn import init_fcn
 from tpufusion.parallel.mesh import batch_sharding, make_mesh, replicate
+from tpufusion.predict import make_e2e_step
 from tpufusion.train.train_step import make_train_step
 
 SPEC = RangeViewSpec(res_h_deg=1.8)
+TX = optax.adam(1e-3)
 
 
-def _setup(seed=0):
-    model = FCN(ModelConfig(), in_channels=3, rngs=nnx.Rngs(seed))
-    opt = nnx.Optimizer(model, optax.adam(1e-3), wrt=nnx.Param)
-    return model, opt
+def _setup(seed=0, mesh=None):
+    """(variables, opt_state), replicated over `mesh` when given."""
+    v = init_fcn(ModelConfig(), jax.random.PRNGKey(seed), in_channels=3)
+    o = TX.init(v["params"])
+    if mesh is not None:
+        v, o = replicate(v, mesh), replicate(o, mesh)
+    return v, o
+
+
+def _step(spec, cfg, mesh=None):
+    return make_train_step(ModelConfig(), TX, spec, LossConfig(), cfg,
+                           mesh=mesh)
+
+
+def _assert_params_match(v1, v2):
+    for a, b in zip(jax.tree.leaves(v1["params"]),
+                    jax.tree.leaves(v2["params"])):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
 
 def _batch(n=16, pts=512):
@@ -46,32 +61,23 @@ def test_eight_virtual_devices():
 def test_sharded_train_step_runs_and_matches_single_device():
     mesh = make_mesh(MeshConfig(n_devices=8))
     batch_np = _batch()
-    step = make_train_step(
-        SPEC, LossConfig(), TrainConfig(batch_size=16, augment=False)
-    )
+    step = _step(SPEC, TrainConfig(batch_size=16, augment=False))
     key = jax.random.PRNGKey(2)
 
     # single device
-    m1, o1 = _setup()
-    loss1, _ = step(m1, o1, jax.device_put(batch_np), key)
+    v1, _, m1 = step(*_setup(), jax.device_put(batch_np), key)
 
     # 8-way data parallel: params replicated, batch sharded
-    m2, o2 = _setup()
-    for mod in (m2, o2):
-        nnx.update(mod, replicate(nnx.state(mod), mesh))
     sh = batch_sharding(mesh)
     batch_sharded = {k: jax.device_put(v, sh) for k, v in batch_np.items()}
     with mesh:
-        loss2, metrics2 = step(m2, o2, batch_sharded, key)
+        v2, _, m2 = step(*_setup(mesh=mesh), batch_sharded, key)
 
-    assert np.isfinite(float(loss2))
-    np.testing.assert_allclose(float(loss1), float(loss2), rtol=1e-4)
-
+    assert np.isfinite(float(m2["loss"]))
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]),
+                               rtol=1e-4)
     # updated parameters must match single-device training
-    p1 = jax.tree.leaves(nnx.state(m1, nnx.Param))
-    p2 = jax.tree.leaves(nnx.state(m2, nnx.Param))
-    for a, b in zip(p1, p2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+    _assert_params_match(v1, v2)
 
 
 def test_spatial_partition_train_step_matches_single_device():
@@ -83,25 +89,19 @@ def test_spatial_partition_train_step_matches_single_device():
     cfg = TrainConfig(batch_size=16, augment=False)
     key = jax.random.PRNGKey(2)
 
-    m1, o1 = _setup()
-    step1 = make_train_step(SPEC, LossConfig(), cfg)
-    loss1, _ = step1(m1, o1, jax.device_put(batch_np), key)
+    v1, _, m1 = _step(SPEC, cfg)(*_setup(), jax.device_put(batch_np), key)
 
-    m2, o2 = _setup()
-    for mod in (m2, o2):
-        nnx.update(mod, replicate(nnx.state(mod), mesh))
-    step2 = make_train_step(SPEC, LossConfig(), cfg, mesh=mesh)
     sh = batch_sharding(mesh)
     batch_sharded = {k: jax.device_put(v, sh) for k, v in batch_np.items()}
     with mesh:
-        loss2, _ = step2(m2, o2, batch_sharded, key)
+        v2, _, m2 = _step(SPEC, cfg, mesh)(
+            *_setup(mesh=mesh), batch_sharded, key
+        )
 
-    assert np.isfinite(float(loss2))
-    np.testing.assert_allclose(float(loss1), float(loss2), rtol=1e-4)
-    p1 = jax.tree.leaves(nnx.state(m1, nnx.Param))
-    p2 = jax.tree.leaves(nnx.state(m2, nnx.Param))
-    for a, b in zip(p1, p2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+    assert np.isfinite(float(m2["loss"]))
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]),
+                               rtol=1e-4)
+    _assert_params_match(v1, v2)
 
 
 def test_image_sharding_layout():
@@ -143,37 +143,24 @@ def test_sharded_e2e_inference_matches_single_device():
     """The fused inference graph (projection + FCN + decode with its
     top_k/argmin/CC fixed-point ops) batch-sharded over the data axis and
     width-constrained over spatial: poses must match unsharded execution
-    (VERDICT r2 #3 — this graph had never been compiled under a mesh)."""
+    (this graph is the one a deployment shards)."""
     from tpufusion.config import DecodeConfig
-    from tpufusion.decode.decode import decode_batch
-    from tpufusion.geometry.range_view import range_view_project_batch
-    from tpufusion.parallel.mesh import constrain_spatial
 
     mesh = make_mesh(MeshConfig(n_devices=8, n_spatial=2))
-    model, _ = _setup()
-    graphdef, state = nnx.split(model)
+    state, _ = _setup()
     dcfg = DecodeConfig()
     # scenes with vehicles near enough that some frames decode a pose
     points, _ = synthesize_points_batch(jax.random.PRNGKey(3), 16, 2048)
     pts_host = np.asarray(points)
 
-    def e2e(state, pts, use_mesh):
-        mdl = nnx.merge(graphdef, state)
-        images = range_view_project_batch(pts, SPEC)
-        if use_mesh:
-            images = constrain_spatial(images, mesh)
-        preds = mdl(images, train=False)
-        out = decode_batch(preds, images, SPEC, dcfg)
-        return out["pose"], out["found"]
-
-    ref_pose, ref_found = jax.jit(lambda s, p: e2e(s, p, False))(
+    ref_pose, ref_found = make_e2e_step(ModelConfig(), SPEC, dcfg)(
         state, jax.device_put(pts_host)
     )
     sh = batch_sharding(mesh)
     with mesh:
-        got_pose, got_found = jax.jit(lambda s, p: e2e(s, p, True))(
-            replicate(state, mesh), jax.device_put(pts_host, sh)
-        )
+        got_pose, got_found = make_e2e_step(
+            ModelConfig(), SPEC, dcfg, mesh=mesh
+        )(replicate(state, mesh), jax.device_put(pts_host, sh))
     np.testing.assert_array_equal(np.asarray(ref_found), np.asarray(got_found))
     np.testing.assert_allclose(
         np.asarray(ref_pose), np.asarray(got_pose), atol=1e-4
@@ -193,25 +180,20 @@ def test_spatial_partition_full_width_train_step():
     cfg = TrainConfig(batch_size=8, augment=False)
     key = jax.random.PRNGKey(2)
 
-    m1, o1 = _setup()
-    step1 = make_train_step(full_spec, LossConfig(), cfg)
-    loss1, _ = step1(m1, o1, jax.device_put(batch_np), key)
-
-    m2, o2 = _setup()
-    for mod in (m2, o2):
-        nnx.update(mod, replicate(nnx.state(mod), mesh))
-    step2 = make_train_step(full_spec, LossConfig(), cfg, mesh=mesh)
+    v1, _, m1 = _step(full_spec, cfg)(
+        *_setup(), jax.device_put(batch_np), key
+    )
     sh = batch_sharding(mesh)
     batch_sharded = {k: jax.device_put(v, sh) for k, v in batch_np.items()}
     with mesh:
-        loss2, _ = step2(m2, o2, batch_sharded, key)
+        v2, _, m2 = _step(full_spec, cfg, mesh)(
+            *_setup(mesh=mesh), batch_sharded, key
+        )
 
-    assert np.isfinite(float(loss2))
-    np.testing.assert_allclose(float(loss1), float(loss2), rtol=1e-4)
-    p1 = jax.tree.leaves(nnx.state(m1, nnx.Param))
-    p2 = jax.tree.leaves(nnx.state(m2, nnx.Param))
-    for a, b in zip(p1, p2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+    assert np.isfinite(float(m2["loss"]))
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]),
+                               rtol=1e-4)
+    _assert_params_match(v1, v2)
 
 
 @pytest.mark.slow
@@ -219,47 +201,32 @@ def test_sharded_full_width_e2e_inference_matches_single_device():
     """The FLAGSHIP inference graph (direct head, width 2, masked-cluster
     decode) at the real production geometry (32 x 1801), batch-sharded
     over data and width-constrained over spatial: the spatial axis must
-    partition the real-width CC/top_k decode (VERDICT r3 #5), and poses
+    partition the real-width CC/top_k decode, and poses
     must match unsharded execution."""
     import dataclasses
 
     from tpufusion.config import DecodeConfig
-    from tpufusion.decode.decode import decode_batch_direct
-    from tpufusion.geometry.range_view import range_view_project_batch
-    from tpufusion.parallel.mesh import constrain_spatial
 
     full_spec = RangeViewSpec()
     assert full_spec.width == 1801
     mesh = make_mesh(MeshConfig(n_devices=8, n_spatial=2))
-    model = FCN(
-        dataclasses.replace(
-            ModelConfig(), head="direct", width_multiplier=2,
-            reg_output_activation="linear",
-        ),
-        in_channels=3, rngs=nnx.Rngs(0),
+    mcfg = dataclasses.replace(
+        ModelConfig(), head="direct", width_multiplier=2,
+        reg_output_activation="linear",
     )
-    graphdef, state = nnx.split(model)
+    state = init_fcn(mcfg, jax.random.PRNGKey(0), in_channels=3)
     dcfg = DecodeConfig(min_bbox_area=20.0)
     points, _ = synthesize_points_batch(jax.random.PRNGKey(5), 8, 8192)
     pts_host = np.asarray(points)
 
-    def e2e(state, pts, use_mesh):
-        mdl = nnx.merge(graphdef, state)
-        images = range_view_project_batch(pts, full_spec)
-        if use_mesh:
-            images = constrain_spatial(images, mesh)
-        preds = mdl(images, train=False)
-        out = decode_batch_direct(preds, images, full_spec, dcfg, 1)
-        return out["poses"][:, 0], out["found"][:, 0]
-
-    ref_pose, ref_found = jax.jit(lambda s, p: e2e(s, p, False))(
+    ref_pose, ref_found = make_e2e_step(mcfg, full_spec, dcfg, head="direct")(
         state, jax.device_put(pts_host)
     )
     sh = batch_sharding(mesh)
     with mesh:
-        got_pose, got_found = jax.jit(lambda s, p: e2e(s, p, True))(
-            replicate(state, mesh), jax.device_put(pts_host, sh)
-        )
+        got_pose, got_found = make_e2e_step(
+            mcfg, full_spec, dcfg, head="direct", mesh=mesh
+        )(replicate(state, mesh), jax.device_put(pts_host, sh))
     np.testing.assert_array_equal(
         np.asarray(ref_found), np.asarray(got_found)
     )

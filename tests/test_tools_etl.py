@@ -269,22 +269,19 @@ def test_detector_envelope_condition_runs():
     arbitrary scene condition (CPU smoke at tiny scale, random weights)."""
     import dataclasses
 
-    from flax import nnx
+    import jax
 
     from tpufusion.config import DEFAULT
-    from tpufusion.models.fcn import FCN
+    from tpufusion.models.fcn import init_fcn
     from tpufusion.tools.detector_envelope import run_condition
 
-    model = FCN(
-        dataclasses.replace(
-            DEFAULT.model, head="direct", reg_output_activation="linear"
-        ),
-        in_channels=3, rngs=nnx.Rngs(0),
+    mcfg = dataclasses.replace(
+        DEFAULT.model, head="direct", reg_output_activation="linear"
     )
-    gd, st = nnx.split(model)
+    st = init_fcn(mcfg, jax.random.PRNGKey(0), in_channels=3)
     dcfg = dataclasses.replace(DEFAULT.decode, min_prob=0.5, min_bbox_area=4.0)
     sc, preds, extra = run_condition(
-        gd, st, dcfg, "direct", n_batches=1, batch=2,
+        mcfg, st, dcfg, n_batches=1, batch=2,
         n_points=2048, max_yaw=0.05, n_clutter=8,
     )
     assert preds.shape == (2, 7)

@@ -146,24 +146,26 @@ def _cmd_train(args):
 
 
 def _cmd_predict(args):
-    from flax import nnx
+    import dataclasses
+
+    import jax
 
     from tpufusion.config import DEFAULT
-    from tpufusion.models.fcn import FCN
+    from tpufusion.models.fcn import init_fcn
     from tpufusion.predict import predict_dataset_dir
     from tpufusion.train.checkpoint import CheckpointManager
-
-    import dataclasses
 
     cfg = DEFAULT
     if args.head != "corner":
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, head=args.head, reg_output_activation="linear"))
-    model = FCN(cfg.model, in_channels=3, rngs=nnx.Rngs(0))
+    variables = init_fcn(cfg.model, jax.random.PRNGKey(0), in_channels=3)
     if args.checkpoint:
-        CheckpointManager(args.checkpoint).restore(model)
+        _, variables, _ = CheckpointManager(args.checkpoint).restore(
+            variables
+        )
     report = predict_dataset_dir(
-        model, args.dataset, args.output_dir, cfg, batch=args.batch_size
+        variables, args.dataset, args.output_dir, cfg, batch=args.batch_size
     )
     print(json.dumps(report))
 
@@ -514,4 +516,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tpufusion.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -80,7 +80,7 @@ class BevSpec:
     res_y: float = 1.33
     density_log_base: float = 64.0
     # Extra MV3D-style channels (max height / max intensity) beyond the
-    # reference's density-only raster; see BASELINE.json north star.
+    # reference's density-only raster (the MV3D input encoding).
     with_height_channel: bool = True
     with_intensity_channel: bool = True
 
@@ -111,7 +111,9 @@ class ModelConfig:
     # USE_SAMPLE_WISE_BATCH_NORMALIZATION variant, model.py:110-113; the
     # shipped lidar_model.h5 uses this flavor)
     sample_wise_bn: bool = False
-    dtype: str = "float32"  # compute dtype for conv stack ("bfloat16" on TPU)
+    # compute dtype of the conv stack; params stay float32 and the
+    # outputs are cast to float32 ("bfloat16" halves activation bytes)
+    dtype: str = "float32"
     # Output activation of the corner-regression head. The reference uses
     # relu (model.py:171-181) — but its targets c' = R^T(corners - pixel)
     # are SIGNED (measured: 56% of foreground target components are
@@ -234,11 +236,6 @@ class DecodeConfig:
     vote_window: int = 512
     # upper bound on connected-component label propagation sweeps
     max_cc_iters: int = 128
-    # CC propagation engine: "auto" resolves to "pallas" on TPU (VMEM-
-    # resident per-frame kernel with per-frame early exit, ops/pallas_cc.py;
-    # +44 f/s e2e under detection load on v5e) and "xla" (reduce-window
-    # sweeps) elsewhere; both are selectable explicitly
-    cc_impl: str = "auto"
     # Direct-head center estimator (decode_frame_direct):
     #   backproject — surface pixel + the fixed range_offset (reference
     #                 semantics, predict.py:283)
@@ -348,9 +345,9 @@ class PipelineConfig:
     # fixed per-frame point budget (clouds are padded/truncated to this)
     max_points: int = 65536
     # "exact" reproduces the reference's nearest-wins collision rule
-    # bit-for-bit; "packed" is ~1.8x faster with a quantized winner key
-    # (99.96% identical pixels on 32k-pt clouds; differing pixels pick a
-    # point <=0.2% farther in L2) — see ops/scatter.py
+    # bit-for-bit; "packed" takes one fewer pass with a quantized winner
+    # key (99.96% identical pixels on 32k-pt clouds; differing pixels pick
+    # a point <=0.2% farther in L2) — see ops/scatter.py
     projection_method: str = "exact"
 
     def replace(self, **kw) -> "PipelineConfig":

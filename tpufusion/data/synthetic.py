@@ -258,7 +258,7 @@ def surface_fit_params(scenes: str) -> tuple[str, float]:
     are the network's size estimate and the raw surface returns, exactly
     the information the reference's decode had (predict.py:166-197
     derives l/w/h/yaw from a rectangle model). This is the
-    oracle-sensitivity control VERDICT r3 asked for."""
+    oracle-sensitivity control."""
     if scenes == "mixed":
         # dual-codec cross-family assets: decode gates the boundary per
         # cluster (DecodeConfig.fit_boundary="auto"); the scale here is

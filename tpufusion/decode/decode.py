@@ -65,7 +65,7 @@ def _heat_components(prob_map: jax.Array, cfg: DecodeConfig):
 
     mask = heat > 0
     labels, min_x, max_x, min_y, max_y = connected_components_with_bbox(
-        mask, cfg.max_cc_iters, cfg.cc_impl
+        mask, cfg.max_cc_iters
     )  # per-pixel cluster root + cluster extents
     return mask, labels, min_x, max_x, min_y, max_y
 
@@ -201,10 +201,9 @@ def back_project_2d_to_3d(
 
     # nearest-valid fallback inside the (inclusive) bbox, masked over the
     # full image: raster-order argmin among in-bbox pixels matches the
-    # reference's subgrid argmin (predict.py:243-275). NB a vmapped
-    # data-dependent dynamic_slice here lowers to a pathologically slow
-    # XLA gather at batch >= 128 (606 ms/chunk, round-1 NOTES.md #2) —
-    # full-image masking costs a little more FLOPs and is ~6x faster.
+    # reference's subgrid argmin (predict.py:243-275). Full-image masking
+    # replaces a vmapped data-dependent dynamic_slice, which lowers to a
+    # batched XLA gather.
     rows = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
     in_window = (
@@ -250,10 +249,9 @@ def corner_vote(
     Candidates come from the FULL image masked to bbox +- margins —
     exactly the reference's scan span (predict.py:103). (An earlier
     revision worked in a 512-column dynamic_slice window for static
-    shapes; a vmapped data-dependent dynamic_slice lowers to an XLA
-    gather that collapses at batch >= 128 — 433 ms of the 606 ms/chunk
-    in round-1 NOTES.md #2 — and the window also truncated candidates
-    for very wide bboxes. Full-image masking removes both.)
+    shapes; a vmapped data-dependent dynamic_slice lowers to a batched
+    XLA gather, and the window also truncated candidates for very wide
+    bboxes. Full-image masking removes both.)
     """
     h, w = y_pred.shape[:2]
 
@@ -276,11 +274,10 @@ def corner_vote(
     # the expensive per-pixel inversion then runs on K pixels, not the
     # whole image. The rank is computed hierarchically — a height-H cumsum
     # down each column plus a width-W exclusive prefix of column totals.
-    # The rank->pixel inversion is scatter-free (an H*W-update scatter
-    # into the slot array costs ~17 ms/64-batch on v5e — XLA:TPU
-    # processes every update serially): instead, each slot finds its
-    # column by counting ended column ranges (VPU compare-sum), pulls
-    # that column's cumulative counts through a one-hot MXU matmul
+    # The rank->pixel inversion is scatter-free (no H*W-update scatter
+    # into the slot array): each slot finds its column by counting
+    # ended column ranges (compare-sum), pulls that column's cumulative
+    # counts through a one-hot matmul
     # (exact: one-hot selection in "highest" splits operands losslessly),
     # and locates its row as the first place the cumulative hits the
     # slot's within-column rank.
@@ -301,8 +298,8 @@ def corner_vote(
     onehot = (
         sel_col[None, :] == jax.lax.broadcasted_iota(jnp.int32, (w, k), 0)
     ).astype(jnp.float32)  # (W, K)
-    # round(): the values are integers < 2**16, but the TPU's multi-pass
-    # f32 matmul may return them with sub-ulp error that would break an
+    # round(): the values are integers < 2**16, but a multi-pass f32
+    # matmul may return them with sub-ulp error that would break an
     # exact equality compare — rounding restores integer exactness
     col_vals = jnp.round(
         jnp.matmul(within.astype(jnp.float32), onehot, precision="highest")
@@ -356,14 +353,12 @@ def corner_vote(
     # pairwise neighbor count within max_bbox_dist (Frobenius over 24 dims).
     # Center on the 3D centroid first: pairwise distances are translation
     # invariant and the small magnitudes keep the f32 Gram trick accurate.
-    # NB cross-platform: "high" (bf16_3x on TPU) can flip pairs sitting
-    # exactly at the max_bbox_dist threshold vs a CPU f32 matmul, which
-    # perturbs the winner set and the averaged box in the 3rd decimal
-    # (measured); the CPU path pins the reference semantics in tests.
+    # NB cross-platform: a reduced-precision product ("high") can flip
+    # pairs sitting exactly at the max_bbox_dist threshold vs a true f32
+    # matmul, which perturbs the winner set and the averaged box in the
+    # 3rd decimal; the CPU path pins the reference semantics in tests.
     sel_c = sel - jnp.tile(centroid_3d, 8)[None, :]
     sq = jnp.sum(sel_c * sel_c, axis=1)
-    # "high" (bf16_3x) keeps ~1e-6 relative error on these centered,
-    # far_delta-bounded values at ~7x the speed of "highest"
     gram = jnp.matmul(sel_c, sel_c.T, precision="high")
     d2 = jnp.maximum(sq[:, None] + sq[None, :] - 2.0 * gram, 0.0)
     d2 = jnp.where(jnp.eye(k, dtype=bool), 0.0, d2)

@@ -28,14 +28,18 @@ import jax.numpy as jnp
 
 from tpufusion.config import RangeViewSpec
 from tpufusion.ops.scatter import (
-    _sortable_bits,
     nearest_wins_scatter,
     nearest_wins_scatter_packed,
     nearest_wins_sort,
     nearest_wins_sort16,
 )
 
-_INT32_MAX = jnp.iinfo(jnp.int32).max
+_WINNER = {
+    "exact": nearest_wins_sort,
+    "sort16": nearest_wins_sort16,
+    "scatter": nearest_wins_scatter,
+    "packed": nearest_wins_scatter_packed,
+}
 
 
 def project_to_pixels(
@@ -71,19 +75,15 @@ def range_view_project(
     `valid` masks padding; non-finite points are dropped regardless.
     method="exact" reproduces the reference's nearest-wins collision rule
     bit-for-bit via the 2-key sort formulation (nearest_wins_sort), which
-    is bit-identical to "scatter", the two-pass scatter-min (slower, kept
-    for testing). "sort16" is the packed-key 2-operand sort variant —
-    also bit-identical, but measured SLOWER on v5e (the log-depth run-min
-    sweep costs more than the saved sort operand; NOTES.md round 3), kept
-    selectable for re-measurement on other hardware. "packed" quantizes
+    is bit-identical to "scatter", the two-pass scatter-min, and to
+    "sort16", the packed-key 2-operand sort variant. "packed" quantizes
     the winner key for one fewer pass (bounded winner-selection
     tolerance, see nearest_wins_scatter_packed).
     """
-    if method == "pallas":
-        return range_view_project_batch(
-            points[None], spec,
-            None if valid is None else valid[None], method,
-        )[0]
+    if method not in _WINNER:
+        raise ValueError(
+            f"unknown projection method {method!r}; one of {sorted(_WINNER)}"
+        )
     pts = points.astype(jnp.float32)
     finite = jnp.all(jnp.isfinite(pts), axis=1)
     if valid is not None:
@@ -92,51 +92,13 @@ def range_view_project(
     row, col, l2 = project_to_pixels(pts, spec)
     pixel_ids = row * spec.width + col
     num_pixels = spec.height * spec.width
-
-    scatter_fn = {
-        "exact": nearest_wins_sort,
-        "sort16": nearest_wins_sort16,
-        "scatter": nearest_wins_scatter,
-        "packed": nearest_wins_scatter_packed,
-    }[method]
-    winner, occupied = scatter_fn(pixel_ids, l2, finite, num_pixels)
+    winner, occupied = _WINNER[method](pixel_ids, l2, finite, num_pixels)
 
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     intensity = pts[:, 3] if pts.shape[1] > 3 else jnp.zeros_like(x)
-    # one row gather of all channels: 2x faster on TPU than three
-    # independent 1-D gathers (measured 167 -> 81 ms/64-batch end to end)
+    # one row gather of all channels instead of three 1-D gathers
     payload = jnp.stack([jnp.sqrt(x * x + y * y), z, intensity], axis=-1)
     vals = payload[winner]  # (num_pixels, 3)
-    fills = jnp.asarray([0.0, spec.min_height, 0.0], jnp.float32)
-    img = jnp.where(occupied[:, None], vals, fills[None, :])
-    return img.reshape(spec.height, spec.width, 3)
-
-
-def _frame_pixels_keys(
-    points: jax.Array, spec: RangeViewSpec, valid: jax.Array | None
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Per-frame (pts, pixel_ids, key_bits) with invalidity folded into the
-    key (INT32_MAX never wins the strict compare) and the pixel id clamped
-    in-range (it is used as a load address before the compare)."""
-    pts = points.astype(jnp.float32)
-    finite = jnp.all(jnp.isfinite(pts), axis=1)
-    if valid is not None:
-        finite = finite & valid
-    row, col, l2 = project_to_pixels(pts, spec)
-    pix = jnp.where(finite, row * spec.width + col, 0)
-    key = jnp.where(finite, _sortable_bits(l2), _INT32_MAX)
-    return pts, pix, key
-
-
-def _gather_image(
-    pts: jax.Array, winner: jax.Array, occupied: jax.Array,
-    spec: RangeViewSpec,
-) -> jax.Array:
-    """Winning point indices -> (H, W, 3) image (shared payload gather)."""
-    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
-    intensity = pts[:, 3] if pts.shape[1] > 3 else jnp.zeros_like(x)
-    payload = jnp.stack([jnp.sqrt(x * x + y * y), z, intensity], axis=-1)
-    vals = payload[winner]
     fills = jnp.asarray([0.0, spec.min_height, 0.0], jnp.float32)
     img = jnp.where(occupied[:, None], vals, fills[None, :])
     return img.reshape(spec.height, spec.width, 3)
@@ -148,26 +110,7 @@ def range_view_project_batch(
     valid: jax.Array | None = None,
     method: str = "exact",
 ) -> jax.Array:
-    """(B, N, 4) [+ (B, N) valid] -> (B, H, W, 3).
-
-    method="pallas" runs the whole batch through one grid-over-frames
-    Pallas scatter-min kernel (ops/pallas_projection.py) instead of the
-    per-frame 2-key XLA sort — bit-identical winners, golden-tested.
-    """
-    if method == "pallas":
-        from tpufusion.ops.pallas_projection import nearest_wins_pallas_batch
-
-        pts, pix, key = jax.vmap(
-            lambda p, v: _frame_pixels_keys(p, spec, v)
-        )(points, valid) if valid is not None else jax.vmap(
-            lambda p: _frame_pixels_keys(p, spec, None)
-        )(points)
-        winner, occupied = nearest_wins_pallas_batch(
-            pix, key, spec.height * spec.width
-        )
-        return jax.vmap(lambda p, w, o: _gather_image(p, w, o, spec))(
-            pts, winner, occupied
-        )
+    """(B, N, 4) [+ (B, N) valid] -> (B, H, W, 3)."""
     if valid is None:
         return jax.vmap(lambda p: range_view_project(p, spec, None, method))(
             points

@@ -19,7 +19,7 @@ connected_components_with_bbox fuses the per-cluster bounding-box fixed
 point into the same loop: any two 4-adjacent foreground pixels belong to the
 same final cluster, so running extents merge unconditionally alongside the
 labels, sparing the four segment-scatter reductions a post-hoc pass would
-need (XLA:TPU scatters with colliding indices serialize).
+need.
 """
 
 from __future__ import annotations
@@ -71,9 +71,8 @@ def _propagate(st0: jax.Array, mask: jax.Array, max_iters: int) -> jax.Array:
     and {1,2,4} along columns, every shift gated by a precomputed
     within-run mask, so information travels up to 16 px per sweep instead
     of 1 — range-view blobs are wide and flat, and the iteration count is
-    what the whole decode's cost scales with under detection load.
-    (A segmented associative_scan full-row propagation was tried and is
-    ~7x slower; plain 1-px sweeps need ~blob-width iterations.)"""
+    what the whole decode's cost scales with under detection load
+    (plain 1-px sweeps need ~blob-width iterations)."""
     h_gates = _run_gates(mask, 1, _H_DISTS)
     v_gates = _run_gates(mask, 0, _V_DISTS)
 
@@ -102,32 +101,14 @@ def _propagate(st0: jax.Array, mask: jax.Array, max_iters: int) -> jax.Array:
         nxt = sweep(st)
         return i + 1, nxt, jnp.any(nxt != st)
 
-    _, st, _ = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), st0, jnp.bool_(True))
-    )
+    with jax.named_scope("cc"):
+        _, st, _ = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), st0, jnp.bool_(True))
+        )
     return st
 
 
-def _run_propagate(
-    st0: jax.Array, mask: jax.Array, max_iters: int, impl: str
-) -> jax.Array:
-    if impl == "auto":
-        # trace-time heuristic: the Mosaic kernel ONLY on real TPU (it
-        # uses pltpu.roll / pltpu.CompilerParams, unsupported elsewhere);
-        # the sweep formulation on CPU/GPU/any other backend.
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas":
-        from tpufusion.ops.pallas_cc import propagate_pallas
-
-        return propagate_pallas(st0, max_iters)
-    if impl != "xla":
-        raise ValueError(f"unknown cc impl {impl!r}")
-    return _propagate(st0, mask, max_iters)
-
-
-def connected_components(
-    mask: jax.Array, max_iters: int = 128, impl: str = "xla"
-) -> jax.Array:
+def connected_components(mask: jax.Array, max_iters: int = 128) -> jax.Array:
     """Label 4-connected components of a 2D boolean mask.
 
     Returns int32 labels with shape == mask.shape: background pixels get -1;
@@ -136,13 +117,11 @@ def connected_components(
     h, w = mask.shape
     flat_ids = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
     st0 = jnp.where(mask, -flat_ids, -_BIG)[None]
-    st = _run_propagate(st0, mask, max_iters, impl)
+    st = _propagate(st0, mask, max_iters)
     return jnp.where(mask, -st[0], -1)
 
 
-def connected_components_with_bbox(
-    mask: jax.Array, max_iters: int = 128, impl: str = "xla"
-):
+def connected_components_with_bbox(mask: jax.Array, max_iters: int = 128):
     """Labels plus per-pixel cluster bbox (min_x, max_x, min_y, max_y).
 
     Background pixels: label -1 and undefined extents.
@@ -159,6 +138,6 @@ def connected_components_with_bbox(
         [init(-flat_ids), init(-cols), init(cols), init(-rows), init(rows)],
         axis=0,
     )
-    st = _run_propagate(st0, mask, max_iters, impl)
+    st = _propagate(st0, mask, max_iters)
     labels = jnp.where(mask, -st[0], -1)
     return labels, -st[1], st[2], -st[3], st[4]

@@ -13,8 +13,7 @@ the winner explicit with a two-stage segment-min:
 
 Non-negative finite float32 values have the property that their raw bit
 patterns (viewed as int32) sort identically to the floats themselves, so
-step 1 works entirely in int32 — no float-compare scatter needed and no
-int64 (which TPUs emulate slowly).
+step 1 works entirely in int32 — no float-compare scatter and no int64.
 """
 
 from __future__ import annotations
@@ -44,11 +43,7 @@ def nearest_wins_scatter(
 
     Two-stage segment-min: (1) per-pixel min of the sortable float bits,
     (2) among points matching that minimum, per-pixel min point index.
-    Measured against the alternatives on TPU v5e (honest timings with
-    forced readback, batch 64 x 32k points): this costs ~166 ms/batch vs
-    ~800 ms for a sort+searchsorted formulation (binary search = 16
-    dependent gathers) — TPU gathers are far more expensive than the
-    scatter-min's fused combine.
+    Both are colliding scatter-mins.
     """
     n = pixel_ids.shape[0]
     safe_ids = jnp.where(valid, pixel_ids, 0)
@@ -75,10 +70,9 @@ def nearest_wins_sort(
     num_pixels: int,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact nearest-wins winner via one stable 2-key sort — same contract
-    and bit-identical result as nearest_wins_scatter, ~1.7x faster on TPU
-    v5e at N=32k (measured 85 -> 50 ms/64-batch projection: the two
-    colliding scatter-mins cost more than one bitonic sort plus a
-    collision-free scatter).
+    and bit-identical result as nearest_wins_scatter: one sort plus a
+    collision-free scatter in place of two colliding scatter-mins. Its
+    device time on the GPU against nearest_wins_scatter: not measured.
 
     Sort (pixel, key-bits) lexicographically, stable, carrying the point
     index: the first element of each pixel run is the winner (stability
@@ -175,16 +169,13 @@ def nearest_wins_sort16(
     lives somewhere in its first equal-`packed` run; a log2(N)-deep gated
     shift-min over (low 15 key bits << 15 | idx) then resolves the exact
     winner inside each run (the same fixed-distance sweep trick as the CC
-    propagation, ops/components.py) — a handful of fused VPU ops instead
+    propagation, ops/components.py) — a handful of fused elementwise ops instead
     of a third sorted operand.
 
     Bit-identical to nearest_wins_sort/scatter (golden-tested). Requires
     pixel ids + 1 sentinel to fit 16 bits and N <= 2^15 (128k-point Waymo
-    clouds need nearest_wins_sort). NOT the default: an in-session
-    readback-fenced A/B on v5e measured it SLOWER than the 2-key sort
-    (100 vs 80 ms/64-batch incl. host transfer) — the 15-step run-min
-    sweep costs more than the third sort operand it saves (NOTES.md
-    round 3). Kept selectable (method="sort16") for other hardware.
+    clouds need nearest_wins_sort). NOT the default: it trades the third
+    sort operand for a 15-step run-min sweep; method="sort16" selects it.
     """
     n = pixel_ids.shape[0]
     assert n <= (1 << 15), f"idx must fit 15 bits, got N={n}"

@@ -1,9 +1,9 @@
 """Device-mesh and sharding helpers.
 
 The reference has no distributed execution at all (SURVEY.md §2.2); here
-multi-chip scale-out is first-class, the TPU way: pick a
+scale-out over several devices is first-class: pick a
 `jax.sharding.Mesh`, annotate shardings, and let XLA's SPMD partitioner
-insert the collectives (they ride ICI; no NCCL analog is needed).
+insert the collectives (NCCL on the GPU).
 
 Two mesh axes cover this model family:
 
@@ -17,8 +17,9 @@ Two mesh axes cover this model family:
 Tensor/pipeline/expert parallelism are deliberately NOT used: the FCN is
 ~1 MB of parameters (SURVEY §2.1 #36) with <= 24-channel layers — there
 is nothing to shard (tp), no layer pipeline deep enough to fill (pp),
-and no experts (ep). Replicating the weights and scaling over data x
-spatial is the right mapping of this workload onto a TPU pod slice.
+and no experts (ep). The mesh follows the algorithm alone: every GPU of
+a host reaches every other over NVLink at the same rate, so the layout
+of the devices into (data, spatial) carries no topology.
 """
 
 from __future__ import annotations

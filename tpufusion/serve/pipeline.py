@@ -13,33 +13,37 @@ from __future__ import annotations
 
 import jax
 import numpy as np
-from flax import nnx
 
 from tpufusion.config import PipelineConfig, DEFAULT
-from tpufusion.models.fcn import FCN
+from tpufusion.models.fcn import init_fcn
+from tpufusion.predict import make_e2e_step
 
 
 class LidarPipeline:
     def __init__(
         self,
         cfg: PipelineConfig = DEFAULT,
-        model: FCN | None = None,
+        variables: dict | None = None,
         checkpoint_dir: str | None = None,
         max_points: int | None = None,
     ):
+        """`variables` (e.g. models/io.load_detector_asset's) default to
+        a seeded random init, or to the latest checkpoint under
+        `checkpoint_dir`."""
         self.cfg = cfg
         self.max_points = max_points or cfg.max_points
-        self.model = model or FCN(cfg.model, in_channels=3, rngs=nnx.Rngs(0))
+        self.variables = variables or init_fcn(
+            cfg.model, jax.random.PRNGKey(0), in_channels=3
+        )
         if checkpoint_dir is not None:
             from tpufusion.train.checkpoint import CheckpointManager
 
-            CheckpointManager(checkpoint_dir).restore(self.model)
-        graphdef, state = nnx.split(self.model)
-        self._state = state
-        from tpufusion.predict import make_e2e_step
-
+            _, self.variables, _ = CheckpointManager(checkpoint_dir).restore(
+                self.variables
+            )
         self._step = make_e2e_step(
-            graphdef, cfg.range_view, cfg.decode, cfg.projection_method
+            cfg.model, cfg.range_view, cfg.decode, cfg.projection_method,
+            head=cfg.model.head,
         )
 
     def _pad(self, points: np.ndarray):
@@ -54,7 +58,7 @@ class LidarPipeline:
     def predict_position(self, points: np.ndarray) -> tuple[np.ndarray, bool]:
         """points (N, >=3[+intensity]) -> (pose (7,), found)."""
         pts, valid = self._pad(np.asarray(points, np.float32))
-        pose, found = self._step(self._state, pts[None], valid[None])
+        pose, found = self._step(self.variables, pts[None], valid[None])
         return np.asarray(pose[0]), bool(found[0])
 
     @staticmethod

@@ -1,10 +1,10 @@
-"""Live browser-based viewer — the headless-TPU replacement for the
+"""Live browser-based viewer — the headless replacement for the
 reference's pyglet windows.
 
 The reference popped interactive pyglet windows per topic during bag
 extraction and replay (`modules/lidar/process/extract_rosbag.py:114-120,
 207-213`, `modules/video/reader.py`), which cannot exist on a headless
-TPU host. The tpu-native equivalent streams the same named "windows"
+accelerator host. This equivalent streams the same named "windows"
 (range view, BEV, class mask, camera) to any browser over HTTP:
 `LiveViewer.push(name, frame)` updates the latest frame for a window and
 every connected browser sees it via an MJPEG multipart stream — the same
@@ -197,12 +197,11 @@ def view_dataset(
     BEV window."""
     import jax
     import jax.numpy as jnp
-    from flax import nnx
 
     from tpufusion.config import DEFAULT, BevSpec
     from tpufusion.geometry.bev import bev_rasterize
     from tpufusion.geometry.range_view import range_view_project
-    from tpufusion.models.fcn import FCN
+    from tpufusion.models.fcn import apply_fcn, init_fcn
     from tpufusion.tools.visualize import (
         render_bev,
         render_class_mask,
@@ -223,15 +222,15 @@ def view_dataset(
 
     fwd = None
     if checkpoint is not None:
-        model = FCN(DEFAULT.model, in_channels=3, rngs=nnx.Rngs(0))
         from tpufusion.train.checkpoint import CheckpointManager
 
-        CheckpointManager(checkpoint).restore(model)
-        graphdef, state = nnx.split(model)
+        _, variables, _ = CheckpointManager(checkpoint).restore(
+            init_fcn(DEFAULT.model, jax.random.PRNGKey(0), in_channels=3)
+        )
 
         @jax.jit
         def fwd(img):
-            preds = nnx.merge(graphdef, state)(img[None], train=False)
+            preds, _ = apply_fcn(DEFAULT.model, variables, img[None])
             return jax.nn.softmax(preds[0, ..., :2])[..., 1]
 
     viewer = LiveViewer(port=port).start()

@@ -15,8 +15,8 @@ its model against (its constants were tuned to its own bags,
   * varied vehicle sizes
   * per-distance-quartile breakdown under the standard protocol
 
-Run: python -m tpufusion.tools.detector_envelope  (~5 min on TPU)
-Prints one row per condition + a JSON tail for BASELINE.md.
+Run: python -m tpufusion.tools.detector_envelope
+Prints one row per condition + a JSON tail.
 """
 
 from __future__ import annotations
@@ -27,29 +27,28 @@ import json
 
 import jax
 import numpy as np
-from flax import nnx
 
 from tpufusion.config import DEFAULT
 from tpufusion.data.synthetic import synthesize_beam_scan_batch
 from tpufusion.decode.decode import decode_batch_direct
 from tpufusion.eval.scoring import score_poses
 from tpufusion.geometry.range_view import range_view_project_batch
+from tpufusion.models.fcn import apply_fcn
+from tpufusion.models.io import (
+    DETECTOR_ASSET,
+    decode_for_resolution,
+    load_detector_asset,
+)
 
 
-def _load_asset(asset_path=None):
-    from tpufusion.benchmarks import _quick_trained_state
-
-    return _quick_trained_state(asset_path=asset_path)
-
-
-def run_condition(graphdef, state, dcfg, head, n_batches=4, batch=32,
+def run_condition(model_cfg, variables, dcfg, n_batches=4, batch=32,
                   seed=999, **scene_kw) -> tuple[dict, np.ndarray, dict]:
     """128 fixed frames under one scene condition -> scores + per-frame
     (distance, xy_err, found, iou-able pose/truth rows)."""
-    if head != "direct":
+    if model_cfg.head != "direct":
         raise ValueError(
             "detector_envelope decodes through the direct-pose head; "
-            f"the asset reports head={head!r}"
+            f"the asset reports head={model_cfg.head!r}"
         )
     spec = DEFAULT.range_view
     center_mode = dcfg.direct_center
@@ -59,7 +58,7 @@ def run_condition(graphdef, state, dcfg, head, n_batches=4, batch=32,
             jax.random.PRNGKey(seed + b), batch, **scene_kw
         )
         imgs = range_view_project_batch(pts, spec, valid)
-        model_out = nnx.merge(graphdef, state)(imgs, train=False)
+        model_out, _ = apply_fcn(model_cfg, variables, imgs)
         out = decode_batch_direct(
             model_out, imgs, spec, dcfg, 1, center_mode
         )
@@ -108,25 +107,12 @@ def main(argv=None):
                          "shipped flagship)")
     args = ap.parse_args(argv)
 
-    graphdef, state, dcfg, head = _load_asset(args.asset)
-
     # the "trained distribution" anchor comes from the asset's own
     # metadata (scenes / max_yaw / n_points recorded at training time by
     # tools/train_synthetic_detector), so the relative conditions below
-    # measure degradation away from THIS asset's training distribution —
-    # for the flagship the meta matches the historical hardcoded base
-    import os
-
-    asset_path = args.asset or os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "assets", "synthetic_detector.npz",
-    )
-    meta = {}
-    try:
-        with open(asset_path + ".json") as f:
-            meta = json.load(f)
-    except (OSError, ValueError):
-        pass
+    # measure degradation away from THIS asset's training distribution
+    cfg, variables, meta = load_detector_asset(args.asset or DETECTOR_ASSET)
+    dcfg = cfg.decode
     base_kw = base_condition_from_meta(meta)
 
     conditions = [
@@ -158,8 +144,6 @@ def main(argv=None):
     ]
     rows = {}
     base_preds = base_truth = None
-    from tpufusion.benchmarks import decode_for_resolution
-
     for name, kw in conditions:
         # per-resolution operating point: the asset's json may carry a
         # decode_per_resolution calibration table (the sparse-sweep det
@@ -168,7 +152,7 @@ def main(argv=None):
             dcfg, meta, kw.get("n_points", base_kw["n_points"])
         )
         sc, preds, extra = run_condition(
-            graphdef, state, cond_dcfg, head,
+            cfg.model, variables, cond_dcfg,
             n_batches=args.eval_batches, batch=args.batch, **kw,
         )
         if name == "trained distribution":

@@ -1,4 +1,4 @@
-"""Oracle-sensitivity A/B for the surface-fit decode (VERDICT r3 #2).
+"""Oracle-sensitivity A/B for the surface-fit decode.
 
 The round-3 fit decode parameterized the exact boundary family the
 scene simulator renders, making the accuracy headline partly
@@ -46,20 +46,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=999)
     args = ap.parse_args(argv)
 
-    from tpufusion.tools.detector_envelope import _load_asset
+    from tpufusion.models.io import DETECTOR_ASSET, load_detector_asset
     from tpufusion.tools.train_synthetic_detector import (
         evaluate,
         prepare_eval_batches,
     )
 
-    graphdef, state, dcfg, head = _load_asset(args.asset)
+    cfg, variables, _ = load_detector_asset(args.asset or DETECTOR_ASSET)
+    model_cfg, dcfg, head = cfg.model, cfg.decode, cfg.model.head
     if head != "direct":
         raise SystemExit(f"needs a direct-pose asset, got head={head!r}")
     spec = DEFAULT.range_view
 
     # forward pass once; every decode mode reuses the prepared batches
     prepared = prepare_eval_batches(
-        graphdef, state, spec, args.batch, seed=args.seed,
+        model_cfg, variables, spec, args.batch, seed=args.seed,
         max_yaw=args.max_yaw, scenes=args.scenes,
         n_batches=args.eval_batches,
     )
@@ -82,7 +83,7 @@ def main(argv=None):
     rows = {}
     for name, cfg_m in modes.items():
         ev = evaluate(
-            graphdef, state, spec, cfg_m, args.batch, seed=args.seed,
+            model_cfg, variables, spec, cfg_m, args.batch, seed=args.seed,
             max_yaw=args.max_yaw, head="direct", scenes=args.scenes,
             center=cfg_m.direct_center, n_batches=args.eval_batches,
             prepared=prepared,

@@ -11,8 +11,8 @@ PointCloud2 + camera Image + radar tracks + GT tracklet XML) pushed
 through the public CLI — extract -> train -> predict -> submit ->
 score — at the full 32x1801 range view, with per-stage wall timings.
 
-Run: python -m tpufusion.tools.rehearse_bag_pipeline  (~3-5 min on TPU)
-Prints one JSON line per stage + a summary for BASELINE.md.
+Run: python -m tpufusion.tools.rehearse_bag_pipeline
+Prints one JSON line per stage + a summary.
 """
 
 from __future__ import annotations

@@ -34,14 +34,13 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
 
 from tpufusion.config import CameraConfig, ModelConfig, RangeViewSpec
 from tpufusion.data.synthetic import synthesize_beam_scan_batch
 from tpufusion.geometry.boxes import _CORNER_SIGNS
 from tpufusion.geometry.camera import CameraModel, synthetic_camera
 from tpufusion.geometry.range_view import range_view_project_batch
-from tpufusion.models.fusion import FusionNet, fusion_loss
+from tpufusion.models.fusion import FusionConfig, apply_fusion, init_fusion
 from tpufusion.models.io import save_state_npz
 
 ASSET = os.path.join(
@@ -168,15 +167,14 @@ def build_dataset(
     return data
 
 
-def evaluate(net, data, rows) -> dict:
-    graphdef, state = nnx.split(net)
-
+def evaluate(fcfg, variables, data, rows) -> dict:
     @jax.jit
-    def fwd(state, cam, lidar, radar):
-        return nnx.merge(graphdef, state)(cam, lidar, radar, train=False)
+    def fwd(variables, cam, lidar, radar):
+        out, _ = apply_fusion(fcfg, variables, cam, lidar, radar)
+        return out
 
     c, r = fwd(
-        state,
+        variables,
         jnp.asarray(data["cam"][rows]),
         jnp.asarray(data["lidar"][rows]),
         jnp.asarray(data["radar"][rows]),
@@ -216,17 +214,15 @@ def main(argv=None):
     held_rows = np.arange(len(held["cam"]))
     print(f"datasets built ({time.time() - t0:.0f}s)", flush=True)
 
-    def make_net():
-        return FusionNet(
-            lidar_model=ModelConfig(dtype="bfloat16"),
-            camera_model=ModelConfig(
-                vertical_stride=2, use_regression=False, dtype="bfloat16"
-            ),
-            camera=CAM,
-            lidar_pool=LIDAR_POOL,
-            cam_pool=CAM_POOL,
-            rngs=nnx.Rngs(3),
-        )
+    fcfg = FusionConfig(
+        lidar_model=ModelConfig(dtype="bfloat16"),
+        camera_model=ModelConfig(
+            vertical_stride=2, use_regression=False, dtype="bfloat16"
+        ),
+        camera=CAM,
+        lidar_pool=LIDAR_POOL,
+        cam_pool=CAM_POOL,
+    )
 
     from tpufusion.train.fusion_trainer import train_fusion
 
@@ -248,18 +244,17 @@ def main(argv=None):
             data["radar"] = np.zeros_like(data["radar"])
             heldv["cam"] = np.zeros_like(heldv["cam"])
             heldv["radar"] = np.zeros_like(heldv["radar"])
-        net = make_net()
-        losses = train_fusion(
-            net, data, epochs=args.epochs, batch_size=args.batch,
-            lr=args.lr, seed=5,
+        variables, losses = train_fusion(
+            fcfg, init_fusion(fcfg, jax.random.PRNGKey(3)), data,
+            epochs=args.epochs, batch_size=args.batch, lr=args.lr, seed=5,
         )
-        ev = evaluate(net, heldv, held_rows)
+        ev = evaluate(fcfg, variables, heldv, held_rows)
         ev["final_loss"] = losses[-1]
         results[variant] = ev
         print(f"{variant}: {ev}", flush=True)
         if variant == "fused":
             os.makedirs(os.path.dirname(args.out), exist_ok=True)
-            save_state_npz(args.out, net, dtype=np.float16)
+            save_state_npz(args.out, variables, dtype=np.float16)
 
     # context: the raw radar feature error is the fused floor for range
     rr = held["radar"][:, 0]

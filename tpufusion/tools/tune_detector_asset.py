@@ -18,11 +18,9 @@ import dataclasses
 import json
 
 import numpy as np
-from flax import nnx
 
 from tpufusion.config import DEFAULT
-from tpufusion.models.fcn import FCN
-from tpufusion.models.io import load_state_npz
+from tpufusion.models.io import load_detector_asset
 from tpufusion.tools.train_synthetic_detector import (
     ASSET,
     evaluate,
@@ -55,20 +53,9 @@ def main(argv=None):
 
     with open(args.asset + ".json") as f:
         meta = json.load(f)
-    mcfg = meta["model"]
-    head = mcfg.get("head", "corner")
-    model = FCN(
-        dataclasses.replace(
-            DEFAULT.model, dtype="bfloat16",
-            reg_output_activation=mcfg.get("reg_output_activation", "relu"),
-            width_multiplier=mcfg.get("width_multiplier", 1),
-            head=head,
-            yaw_codec=mcfg.get("yaw_codec", "single"),
-        ),
-        in_channels=3, rngs=nnx.Rngs(0),
-    )
-    load_state_npz(args.asset, model)
-    graphdef, state = nnx.split(model)
+    cfg, variables, _ = load_detector_asset(args.asset, meta=meta)
+    model_cfg = dataclasses.replace(cfg.model, dtype="bfloat16")
+    head = model_cfg.head
     spec = DEFAULT.range_view
     scenes = meta.get("scenes", "beam")
     max_yaw = meta.get("max_yaw", 0.05)
@@ -119,7 +106,7 @@ def main(argv=None):
     def prepare_all(n_points, seed=999):
         return {
             f: prepare_eval_batches(
-                graphdef, state, spec, args.batch, n_points, seed=seed,
+                model_cfg, variables, spec, args.batch, n_points, seed=seed,
                 max_yaw=fam_yaw(f), scenes=f, n_batches=args.eval_batches,
             )
             for f in families
@@ -128,7 +115,7 @@ def main(argv=None):
     def eval_mean(dcfg, center, n_points, prepared=None, seed=999):
         per_fam = [
             evaluate(
-                graphdef, state, spec, dcfg, args.batch, n_points,
+                model_cfg, variables, spec, dcfg, args.batch, n_points,
                 seed=seed, max_yaw=fam_yaw(f), head=head, scenes=f,
                 center=center, n_batches=args.eval_batches,
                 prepared=None if prepared is None else prepared[f],
@@ -182,7 +169,7 @@ def main(argv=None):
             # sparse sweeps need FAR lower thresholds than the sweep
             # grid's floor suggests: at 16k points the flagship's det
             # goes 0.77 -> 0.94 between min_prob 0.3 and 0.05 (round 4,
-            # fenced 128-frame protocol) — the classifier's confidence
+            # 128-frame protocol) — the classifier's confidence
             # scales with per-pixel occupancy, not with object presence
             for mp in (0.05, 0.1, 0.2, 0.3, 0.5, 0.7, 0.8, 0.9):
                 for ar in (8.0, 20.0):

@@ -13,12 +13,17 @@ or raw `points` (B, N, 4) to be projected on device, plus ground truth
 
 from __future__ import annotations
 
-from flax import nnx
+import jax
+import optax
 
-from tpufusion.config import LossConfig, RangeViewSpec, TrainConfig
+from tpufusion.config import LossConfig, ModelConfig, RangeViewSpec, TrainConfig
 from tpufusion.data.augment import augment_batch
-from tpufusion.geometry.encoding import encode_label_batch
+from tpufusion.geometry.encoding import (
+    encode_direct_label_batch,
+    encode_label_batch,
+)
 from tpufusion.geometry.range_view import range_view_project_batch
+from tpufusion.models.fcn import apply_fcn
 from tpufusion.models.losses import weighted_pose_loss
 from tpufusion.models.metrics import batch_metrics
 
@@ -33,21 +38,39 @@ def _batch_images(batch, spec: RangeViewSpec):
     )
 
 
+def _labels(batch, images, spec, head, yaw_frame):
+    if "labels" in batch:
+        # precomputed labels (camera-source training: footprints from
+        # geometry/camera.camera_label_footprint, no on-device encode)
+        return batch["labels"]
+    if head == "direct":
+        return encode_direct_label_batch(
+            batch["center"], batch["size"], batch["yaw"], images, spec,
+            yaw_frame=yaw_frame,
+        )
+    return encode_label_batch(
+        batch["center"], batch["size"], batch["yaw"], images, spec
+    )
+
+
 def make_train_step(
+    model_cfg: ModelConfig,
+    tx: optax.GradientTransformation,
     spec: RangeViewSpec,
     loss_cfg: LossConfig,
     train_cfg: TrainConfig,
-    use_regression: bool = True,
     mesh=None,
-    head: str = "corner",
     yaw_frame: str = "local",
 ):
-    """Returns train_step(model, optimizer, batch, key) -> (loss, metrics).
+    """Returns train_step(variables, opt_state, batch, key) ->
+    (variables, opt_state, metrics); metrics["loss"] is the loss. The
+    params update through `tx` (whose state is `tx.init(params)`), the
+    batch statistics through the normalization's running averages.
 
     With a 2-D (data, spatial) `mesh`, the range image and labels are
     pinned to the data x spatial layout after projection/encode, so GSPMD
     spatially partitions the FCN convolutions (halo exchanges at shard
-    edges) instead of gathering full images per chip.
+    edges) instead of gathering full images per device.
 
     yaw_frame selects the direct head's sin/cos codec
     (geometry/encoding.encode_direct_label): "local" for oriented
@@ -58,30 +81,17 @@ def make_train_step(
     per scene family; decode must use the matching
     DecodeConfig.direct_yaw_frame).
 
-    head="direct" encodes the 8-channel direct-pose targets instead of
-    the 24-dim corner field; the azimuth-roll augmentation is skipped for
-    it (the sin/cos yaw channels are not roll-invariant — see
+    model_cfg.head="direct" encodes the 8-channel direct-pose targets
+    instead of the 24-dim corner field; the azimuth-roll augmentation is
+    skipped for it (the sin/cos yaw channels are not roll-invariant — see
     geometry/encoding.encode_direct_label).
     """
+    head, use_regression = model_cfg.head, model_cfg.use_regression
 
-    @nnx.jit
-    def train_step(model, optimizer, batch, key):
+    @jax.jit
+    def train_step(variables, opt_state, batch, key):
         images = _batch_images(batch, spec)
-        if "labels" in batch:
-            # precomputed labels (camera-source training: footprints from
-            # geometry/camera.camera_label_footprint, no on-device encode)
-            labels = batch["labels"]
-        elif head == "direct":
-            from tpufusion.geometry.encoding import encode_direct_label_batch
-
-            labels = encode_direct_label_batch(
-                batch["center"], batch["size"], batch["yaw"], images, spec,
-                yaw_frame=yaw_frame,
-            )
-        else:
-            labels = encode_label_batch(
-                batch["center"], batch["size"], batch["yaw"], images, spec
-            )
+        labels = _labels(batch, images, spec, head, yaw_frame)
         if train_cfg.augment and "labels" not in batch and head != "direct":
             images, labels = augment_batch(
                 key, images, labels,
@@ -93,64 +103,47 @@ def make_train_step(
             images = constrain_spatial(images, mesh)
             labels = constrain_spatial(labels, mesh)
 
-        def loss_fn(model):
-            preds = model(images, train=True)
+        def loss_fn(params):
+            preds, stats = apply_fcn(
+                model_cfg,
+                {"params": params, "batch_stats": variables["batch_stats"]},
+                images, train=True,
+            )
             loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression)
-            return loss, preds
+            return loss, (preds, stats)
 
-        (loss, preds), grads = nnx.value_and_grad(loss_fn, has_aux=True)(model)
-        optimizer.update(model, grads)
+        params = variables["params"]
+        (loss, (preds, stats)), grads = jax.value_and_grad(
+            loss_fn, has_aux=True
+        )(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
         metrics = batch_metrics(preds, labels, use_regression)
         metrics["loss"] = loss
-        return loss, metrics
+        return {"params": params, "batch_stats": stats}, opt_state, metrics
 
     return train_step
 
 
 def make_eval_step(
+    model_cfg: ModelConfig,
     spec: RangeViewSpec,
     loss_cfg: LossConfig,
-    use_regression: bool = True,
-    head: str = "corner",
     yaw_frame: str = "local",
 ):
-    """Eval twin of make_train_step; yaw_frame must match the codec the
-    model was trained with (see make_train_step's docstring)."""
-    @nnx.jit
-    def eval_step(model, batch):
-        images = _batch_images(batch, spec)
-        if "labels" in batch:
-            labels = batch["labels"]
-        elif head == "direct":
-            from tpufusion.geometry.encoding import encode_direct_label_batch
+    """Eval twin of make_train_step: eval_step(variables, batch) ->
+    metrics. yaw_frame must match the codec the model was trained with
+    (see make_train_step's docstring)."""
+    head, use_regression = model_cfg.head, model_cfg.use_regression
 
-            labels = encode_direct_label_batch(
-                batch["center"], batch["size"], batch["yaw"], images, spec,
-                yaw_frame=yaw_frame,
-            )
-        else:
-            labels = encode_label_batch(
-                batch["center"], batch["size"], batch["yaw"], images, spec
-            )
-        preds = model(images, train=False)
+    @jax.jit
+    def eval_step(variables, batch):
+        images = _batch_images(batch, spec)
+        labels = _labels(batch, images, spec, head, yaw_frame)
+        preds, _ = apply_fcn(model_cfg, variables, images, train=False)
         loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression)
         metrics = batch_metrics(preds, labels, use_regression)
         metrics["loss"] = loss
-        return loss, metrics
+        return metrics
 
     return eval_step
-
-
-def make_forward(spec: RangeViewSpec):
-    """Inference forward: points -> (images, predictions), one XLA program.
-
-    This is the projection+FCN part of the benchmarked end-to-end graph.
-    """
-
-    @nnx.jit
-    def forward(model, points):
-        images = range_view_project_batch(points, spec)
-        preds = model(images, train=False)
-        return images, preds
-
-    return forward

@@ -3,7 +3,7 @@
 The reference orchestration lives in `modules/lidar/train/train.py:107-290`
 (Keras fit_generator + ModelCheckpoint + TensorBoard + LossHistory +
 PR-curve plots, Ctrl-C-safe final save). Here: a plain loop over the
-device-feeding pipeline with a jitted step, an orbax CheckpointManager,
+device-feeding pipeline with a jitted step, step-numbered npz checkpoints,
 an in-memory metric history that serializes to the same PR-curve CSV
 schema (`modules/lidar/common/pr_curve_plotter.py`), and interrupt-safe
 final checkpointing.
@@ -18,11 +18,10 @@ import time
 import jax
 import numpy as np
 import optax
-from flax import nnx
 
 from tpufusion.config import PipelineConfig
 from tpufusion.data.pipeline import BatchPipeline
-from tpufusion.models.fcn import FCN
+from tpufusion.models.fcn import init_fcn
 from tpufusion.train.checkpoint import CheckpointManager
 from tpufusion.train.train_step import make_eval_step, make_train_step
 from tpufusion.utils.logging import get_logger
@@ -71,15 +70,15 @@ class Trainer:
     def __init__(
         self,
         cfg: PipelineConfig,
-        model: FCN | None = None,
+        variables: dict | None = None,
         outdir: str = "./runs/default",
         in_channels: int = 3,
     ):
         self.cfg = cfg
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
-        self.model = model or FCN(
-            cfg.model, in_channels, rngs=nnx.Rngs(cfg.train.seed)
+        self.variables = variables or init_fcn(
+            cfg.model, jax.random.PRNGKey(cfg.train.seed), in_channels
         )
         tcfg = cfg.train
         if tcfg.lr_schedule == "cosine":
@@ -94,7 +93,8 @@ class Trainer:
         tx = optax.adam(lr)
         if cfg.train.grad_accum_steps > 1:
             tx = optax.MultiSteps(tx, cfg.train.grad_accum_steps)
-        self.optimizer = nnx.Optimizer(self.model, tx, wrt=nnx.Param)
+        self.tx = tx
+        self.opt_state = tx.init(self.variables["params"])
         if cfg.model.head not in ("corner", "direct"):
             raise ValueError(f"unknown model head {cfg.model.head!r}")
         # The direct head's yaw codec has one source of truth per pipeline:
@@ -102,12 +102,11 @@ class Trainer:
         # model was trained with — NOTES.md round-3 sessions B/D).
         yaw_frame = cfg.decode.direct_yaw_frame
         self.train_step = make_train_step(
-            cfg.range_view, cfg.loss, cfg.train, cfg.model.use_regression,
-            head=cfg.model.head, yaw_frame=yaw_frame,
+            cfg.model, tx, cfg.range_view, cfg.loss, cfg.train,
+            yaw_frame=yaw_frame,
         )
         self.eval_step = make_eval_step(
-            cfg.range_view, cfg.loss, cfg.model.use_regression,
-            head=cfg.model.head, yaw_frame=yaw_frame,
+            cfg.model, cfg.range_view, cfg.loss, yaw_frame=yaw_frame
         )
         self.history = MetricHistory()
         self.ckpt = CheckpointManager(
@@ -115,12 +114,18 @@ class Trainer:
         )
         self.step = 0
 
+    def _restore(self) -> int:
+        step, self.variables, self.opt_state = self.ckpt.restore(
+            self.variables, self.opt_state
+        )
+        self.step = step
+        return step
+
     def resume(self) -> bool:
         try:
-            step = self.ckpt.restore(self.model, self.optimizer)
+            step = self._restore()
         except FileNotFoundError:
             return False
-        self.step = step
         log.info("resumed from step %d", step)
         return True
 
@@ -129,7 +134,7 @@ class Trainer:
         checkpoint instead of training onward on poisoned weights. (The
         reference has no failure handling at all — SURVEY.md §5.)"""
         try:
-            step = self.ckpt.restore(self.model, self.optimizer)
+            step = self._restore()
         except FileNotFoundError:
             log.error(
                 "non-finite loss before any checkpoint exists — aborting "
@@ -137,7 +142,6 @@ class Trainer:
             )
             return False
         log.warning("non-finite loss — restored checkpoint at step %d", step)
-        self.step = step
         return True
 
     def _append_metrics_jsonl(self, epoch, train_avg, val_avg=None) -> None:
@@ -155,7 +159,7 @@ class Trainer:
     def _params_finite(self) -> bool:
         return all(
             bool(jax.numpy.isfinite(leaf).all())
-            for leaf in jax.tree.leaves(nnx.state(self.model, nnx.Param))
+            for leaf in jax.tree.leaves(self.variables["params"])
         )
 
     def _drain(self, pending: list, sums: dict, nb: int):
@@ -197,8 +201,10 @@ class Trainer:
                 # float(loss) every step)
                 for batch in train_pipe.epoch():
                     key, sub = jax.random.split(key)
-                    _, metrics = self.train_step(
-                        self.model, self.optimizer, batch, sub
+                    self.variables, self.opt_state, metrics = (
+                        self.train_step(
+                            self.variables, self.opt_state, batch, sub
+                        )
                     )
                     pending.append(metrics)
                     self.step += 1
@@ -224,7 +230,7 @@ class Trainer:
                 if val_pipe is not None:
                     vsums, vn = {}, 0
                     for batch in val_pipe.epoch():
-                        _, metrics = self.eval_step(self.model, batch)
+                        metrics = self.eval_step(self.variables, batch)
                         vn += 1
                         for k, v in metrics.items():
                             vsums[k] = vsums.get(k, 0.0) + float(v)
@@ -240,14 +246,14 @@ class Trainer:
                     time.time() - t0,
                 )
                 if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                    self.ckpt.save(self.step, self.model, self.optimizer)
+                    self.ckpt.save(self.step, self.variables, self.opt_state)
         except KeyboardInterrupt:
             log.info("interrupted — saving final checkpoint")
         finally:
             # never persist non-finite weights as the "latest" checkpoint —
             # a later resume/recovery would restore them as if good
             if self._params_finite():
-                self.ckpt.save(self.step, self.model, self.optimizer)
+                self.ckpt.save(self.step, self.variables, self.opt_state)
             else:
                 log.error("final weights are non-finite — NOT checkpointing")
             self.history.write_pr_csv(os.path.join(self.outdir, "pr_curve.csv"))
